@@ -6,7 +6,7 @@ all: oracle
 
 # native scalar oracle (also built on demand by the ctypes loader)
 oracle:
-	cmake -S sangnom_tpu/oracle -B build/oracle $(shell command -v ninja >/dev/null && echo -G Ninja)
+	cmake -S sangnom_jax/oracle -B build/oracle $(shell command -v ninja >/dev/null && echo -G Ninja)
 	cmake --build build/oracle
 
 test:
@@ -16,5 +16,5 @@ bench:
 	python bench.py
 
 clean:
-	rm -rf build sangnom_tpu/oracle/_build .pytest_cache
+	rm -rf build sangnom_jax/oracle/_build .pytest_cache
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

@@ -10,8 +10,8 @@ the in-between lines edge-directedly — the standard AA building block
 
 import sys
 
-from sangnom_tpu import sangnom2
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax import sangnom2
+from sangnom_jax.io import read_y4m, write_y4m
 
 clip = read_y4m(sys.argv[1])
 out = sangnom2(clip, dh=True, aa=48, aac=0)

@@ -5,7 +5,7 @@ ships against (reference src/SangNom2.cpp:399-484): function registration
 with typed signature strings, AVSValue positional/named argument binding,
 factory validation through env.throw_error, and pull-model frame serving
 (GetFrame / GetParity / SetCacheHints).  An AviSynth-minded caller keeps
-their mental model; the frames come off the TPU in windowed batches.
+their mental model; the frames come off the device in windowed batches.
 
     python examples/avisynth_host.py in.y4m out.y4m
 """
@@ -14,10 +14,10 @@ import sys
 
 import numpy as np
 
-from sangnom_tpu.hosts.avisynth import (CACHE_GET_MTMODE, ArraySource,
+from sangnom_jax.hosts.avisynth import (CACHE_GET_MTMODE, ArraySource,
                                         ScriptEnvironment,
                                         avisynth_plugin_init)
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax.io import read_y4m, write_y4m
 
 env = ScriptEnvironment()
 print("plugin id:", avisynth_plugin_init(env))  # "SangNom2", as AvisynthPluginInit3 returns
@@ -38,7 +38,7 @@ frames = [flt.get_frame(n, env) for n in range(vi.num_frames)]
 planes = [np.stack([fr.planes[i] for fr in frames])
           for i in range(vi.num_components())]
 
-from sangnom_tpu import Clip  # noqa: E402
+from sangnom_jax import Clip  # noqa: E402
 
 write_y4m(sys.argv[2], Clip.from_numpy(planes, vi.format))
 print(f"wrote {vi.num_frames} frames at {vi.width}x{vi.height}")

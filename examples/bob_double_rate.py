@@ -6,8 +6,8 @@ full frame (2N output frames), fields sequenced by stream dominance.
 
 import sys
 
-from sangnom_tpu import bob
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax import bob
+from sangnom_jax.io import read_y4m, write_y4m
 
 clip = read_y4m(sys.argv[1])
 out = bob(clip)  # SeparateFields -> DoubleWeave -> SangNom2(order=0)

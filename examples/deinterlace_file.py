@@ -5,8 +5,8 @@
 
 import sys
 
-from sangnom_tpu import sangnom2
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax import sangnom2
+from sangnom_jax.io import read_y4m, write_y4m
 
 clip = read_y4m(sys.argv[1])
 out = sangnom2(clip, order=1, aa=48)  # keep top field, default strength

@@ -17,8 +17,8 @@ SSE2 code compiled in place (tests/test_sse2_numerics.py).
 
 import sys
 
-from sangnom_tpu import sangnom2
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax import sangnom2
+from sangnom_jax.io import read_y4m, write_y4m
 
 clip = read_y4m(sys.argv[1])
 

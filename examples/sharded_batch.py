@@ -1,8 +1,9 @@
 """Multi-chip scaling: shard a frame batch over a device mesh.
 
-Runs on any device count (falls back to a 1-device mesh); on a real TPU pod
-slice the 'data' axis spreads frames across chips with zero communication,
-and the optional 'space' axis splits plane width with ICI halo exchange.
+Runs on any device count (falls back to a 1-device mesh); on several GPUs
+the 'data' axis spreads frames across cards with zero communication, and
+the optional 'space' axis splits plane width with a per-row halo
+exchange.
 
     python examples/sharded_batch.py
 """
@@ -10,8 +11,8 @@ and the optional 'space' axis splits plane width with ICI halo exchange.
 import numpy as np
 
 import jax
-from sangnom_tpu import Clip
-from sangnom_tpu.parallel import default_mesh, sangnom2_sharded
+from sangnom_jax import Clip
+from sangnom_jax.parallel import default_mesh, sangnom2_sharded
 
 n_dev = len(jax.devices())
 mesh = default_mesh(data=n_dev)

@@ -1,0 +1,72 @@
+"""Raw planar frame I/O (headerless; geometry supplied by the caller).
+
+The escape hatch for formats y4m cannot carry (float planes, alpha) and for
+interop with `ffmpeg -f rawvideo` pipelines.
+"""
+
+from __future__ import annotations
+
+from typing import BinaryIO, Union
+
+import numpy as np
+
+from sangnom_jax.core.clip import Clip
+from sangnom_jax.core.formats import VideoFormat, get_format
+from sangnom_jax.io.common import _open, read_frames_chunked
+
+
+def frame_size_bytes(fmt: VideoFormat, width: int, height: int) -> int:
+    return sum(
+        pw * ph * fmt.component_size
+        for pw, ph in (fmt.plane_dims(width, height, i) for i in range(fmt.num_planes))
+    )
+
+
+def read_raw(
+    f: Union[str, BinaryIO],
+    format: VideoFormat | str,
+    width: int,
+    height: int,
+    max_frames: int | None = None,
+    **clip_kw,
+) -> Clip:
+    """Read back-to-back planar frames until EOF (or max_frames).
+
+    Frames stream directly into preallocated per-plane arrays (one copy;
+    same discipline as the y4m reader)."""
+    fmt = get_format(format) if isinstance(format, str) else format
+    geom = [fmt.plane_dims(width, height, i) for i in range(fmt.num_planes)]
+    dt = fmt.dtype.newbyteorder("<") if fmt.component_size > 1 else fmt.dtype
+
+    fh, close = _open(f, "rb")
+    try:
+        planes = read_frames_chunked(
+            fh, geom, dt, max_frames, truncated_msg="truncated raw frame",
+        )
+        if not planes:
+            raise ValueError("raw stream contains no complete frames")
+        return Clip.from_numpy(planes, fmt, **clip_kw)
+    finally:
+        if close:
+            fh.close()
+
+
+def write_raw(f: Union[str, BinaryIO], clip: Clip) -> None:
+    """Write back-to-back planar frames (little-endian for >8-bit).
+
+    One fetch+convert per plane for the whole clip, zero-copy per-frame
+    writes (same discipline as write_y4m_frames)."""
+    fh, close = _open(f, "wb")
+    dt = clip.format.dtype.newbyteorder("<") if clip.format.component_size > 1 \
+        else clip.format.dtype
+    try:
+        arrs = [
+            np.ascontiguousarray(np.asarray(p)).astype(dt, copy=False)
+            for p in clip.planes
+        ]
+        for n in range(clip.num_frames):
+            for p in arrs:
+                fh.write(p[n].data)
+    finally:
+        if close:
+            fh.close()

@@ -21,7 +21,7 @@ os.environ["XLA_FLAGS"] = " ".join(flags)
 
 pid, n_proc, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 
-from sangnom_tpu.parallel.multihost import (  # noqa: E402
+from sangnom_jax.parallel.multihost import (  # noqa: E402
     initialize_distributed,
     multihost_mesh,
     sangnom2_multihost,
@@ -31,9 +31,9 @@ initialize_distributed(f"localhost:{port}", n_proc, pid, cpu_devices=2)
 
 import numpy as np  # noqa: E402
 
-from sangnom_tpu import sangnom2  # noqa: E402
-from sangnom_tpu.core.clip import Clip  # noqa: E402
-from sangnom_tpu.core.formats import get_format  # noqa: E402
+from sangnom_jax import sangnom2  # noqa: E402
+from sangnom_jax.core.clip import Clip  # noqa: E402
+from sangnom_jax.core.formats import get_format  # noqa: E402
 
 fmt = get_format("YUV420P8")
 rng = np.random.default_rng(7)

@@ -3,7 +3,7 @@
 A deliberately slow, loop-by-loop Python transliteration of the semantics the
 framework must honor (derived from reference src/SangNom2.cpp:25-273,
 332-397).  Used as the parity oracle for tiny frames; the native C++ oracle
-(sangnom_tpu/oracle) covers large frames fast.
+(sangnom_jax/oracle) covers large frames fast.
 
 Default contract (both axes selectable, mirroring the framework API):
   * buffer cells outside the prepared plane region are ZERO (the reference
@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from sangnom_tpu.core.formats import VideoFormat
-from sangnom_tpu.core.geometry import (
+from sangnom_jax.core.formats import VideoFormat
+from sangnom_jax.core.geometry import (
     aaf_as_pixel,
     buffer_stride_elems,
     scaled_aa_thresholds,

@@ -7,9 +7,9 @@ Mirrors every rule in the reference factories (reference src/SangNom2.cpp:
 import numpy as np
 import pytest
 
-import sangnom_tpu
-from sangnom_tpu import Clip, get_format, sangnom, sangnom2
-from sangnom_tpu.api import SangNomError, register_plugin_functions
+import sangnom_jax
+from sangnom_jax import Clip, get_format, sangnom, sangnom2
+from sangnom_jax.api import SangNomError, register_plugin_functions
 
 from conftest import make_planes
 
@@ -134,32 +134,41 @@ def test_dh_doubles_height():
 
 
 def test_version_metadata():
-    assert sangnom_tpu.__version__
-    assert sangnom_tpu.REFERENCE_VERSION == "0.6.1"
+    assert sangnom_jax.__version__
+    assert sangnom_jax.REFERENCE_VERSION == "0.6.1"
 
 
-def test_opt1_requires_tpu_backend(monkeypatch):
-    """opt=1 off-TPU is a construction-time error unless interpret mode is
-    explicitly requested — the analogue of the reference's CPUID gate
-    (reference src/SangNom2.cpp:420-421 "opt=1 requires SSE2.")."""
-    from sangnom_tpu.api import SangNom2Filter
+def test_opt1_requires_gpu_backend(monkeypatch):
+    """opt=1 without a GPU is a construction-time error unless the
+    interpreter is explicitly requested — the analogue of the reference's
+    CPUID gate (reference src/SangNom2.cpp:420-421 "opt=1 requires
+    SSE2.")."""
+    from sangnom_jax.api import SangNom2Filter
 
-    monkeypatch.delenv("SANGNOM_TPU_INTERPRET", raising=False)
+    monkeypatch.delenv("SANGNOM_INTERPRET", raising=False)
     # this suite runs on the CPU mesh, so the gate must fire
     with pytest.raises(SangNomError,
-                       match=r"SangNom2: opt=1 requires a TPU backend\."):
+                       match=r"SangNom2: opt=1 requires a GPU backend\."):
         sangnom2(_clip(), opt=1)
     with pytest.raises(SangNomError,
-                       match=r"SangNom: opt=1 requires a TPU backend\."):
+                       match=r"SangNom: opt=1 requires a GPU backend\."):
         sangnom(_clip(), opt=1)
     with pytest.raises(SangNomError,
-                       match=r"SangNom2: opt=1 requires a TPU backend\."):
+                       match=r"SangNom2: opt=1 requires a GPU backend\."):
         SangNom2Filter(opt=1)
-    # opt=-1 auto and opt=0 stay available off-TPU (auto picks the XLA path)
+    # opt=-1 auto and opt=0 stay available (auto picks the XLA path here)
+    sangnom2(_clip(), opt=-1)
+    sangnom2(_clip(), opt=0)
+    # the explicit interpreter escape restores opt=1 (what this suite's
+    # conftest does globally)
+    monkeypatch.setenv("SANGNOM_INTERPRET", "1")
+    sangnom2(_clip(), opt=1)
+    SangNom2Filter(opt=1)
+    # opt=-1 auto and opt=0 stay available (auto picks the XLA path here)
     sangnom2(_clip(), opt=-1)
     sangnom2(_clip(), opt=0)
     # the explicit interpret-mode escape restores opt=1 (what this suite's
     # conftest does globally)
-    monkeypatch.setenv("SANGNOM_TPU_INTERPRET", "1")
+    monkeypatch.setenv("SANGNOM_INTERPRET", "1")
     sangnom2(_clip(), opt=1)
     SangNom2Filter(opt=1)

@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 
 from conftest import make_planes
-from sangnom_tpu import Clip, get_format, sangnom, sangnom2
-from sangnom_tpu.hosts.avisynth import (
-    CACHE_GET_MTMODE, CPUF_TPU, MT_MULTI_INSTANCE, MT_SERIALIZED,
+from sangnom_jax import Clip, get_format, sangnom, sangnom2
+from sangnom_jax.hosts.avisynth import (
+    CACHE_GET_MTMODE, CPUF_GPU, MT_MULTI_INSTANCE, MT_SERIALIZED,
     SIG_SANGNOM, SIG_SANGNOM2, ArraySource, AvisynthError,
     ScriptEnvironment, avisynth_plugin_init, bind_args, parse_signature,
 )
@@ -121,7 +121,7 @@ def test_opt1_gate_rides_env_cpu_flags(rng):
     avisynth_plugin_init(bare)
     with pytest.raises(AvisynthError, match="opt=1 requires"):
         bare.invoke("SangNom2", src, opt=1)
-    flagged = ScriptEnvironment(cpu_flags=CPUF_TPU)
+    flagged = ScriptEnvironment(cpu_flags=CPUF_GPU)
     avisynth_plugin_init(flagged)
     flt = flagged.invoke("SangNom2", src, opt=1)
     assert flt.get_video_info().height == 16
@@ -323,7 +323,7 @@ def test_canonical_bob_recipe_matches_core_bob(rng, assume):
     """The reference's documented double-rate recipe (src/SangNom2.cpp:
     18-23), run verbatim through the script environment, must equal the
     core bob() fast path bit for bit."""
-    from sangnom_tpu.core.fields import bob
+    from sangnom_jax.core.fields import bob
 
     planes = _stacked(rng, n=3, fmt_name="YUV420P8")
     env = _env()

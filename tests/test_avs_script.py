@@ -5,12 +5,12 @@ import numpy as np
 import pytest
 
 from conftest import make_planes
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.core.fields import bob
-from sangnom_tpu.hosts.avisynth import (ArraySource, AvisynthError,
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.core.fields import bob
+from sangnom_jax.hosts.avisynth import (ArraySource, AvisynthError,
                                         ScriptEnvironment,
                                         avisynth_plugin_init)
-from sangnom_tpu.hosts.avs_script import eval_script
+from sangnom_jax.hosts.avs_script import eval_script
 
 
 def _env():
@@ -113,9 +113,9 @@ def test_string_and_numeric_literals(rng):
 
 
 def test_cli_script_verb_runs_recipe(rng, tmp_path):
-    """sangnom-tpu script RECIPE in.y4m out.y4m == core bob, fps doubled."""
-    from sangnom_tpu.cli import main
-    from sangnom_tpu.io import read_y4m, write_y4m
+    """sangnom-jax script RECIPE in.y4m out.y4m == core bob, fps doubled."""
+    from sangnom_jax.cli import main
+    from sangnom_jax.io import read_y4m, write_y4m
 
     fmt = get_format("YUV420P8")
     frames = [make_planes(rng, 32, 16, fmt) for _ in range(3)]

@@ -1,15 +1,12 @@
-"""Collective-count audit of the width-sharded backends (VERDICT_r3 #3).
+"""Collective-count audit of the width-sharded scan.
 
-The fused sharded path's performance contract is its COMMUNICATION pattern
-(parallel/fused_smooth.interpolate_fused_full docstring): per processed
-plane, ONE kept-field halo exchange in the storage dtype outside the chunk
-scan, then one carry-row halo exchange per chunk of R rows inside it — each
-exchange being a left+right `lax.ppermute` pair
-(parallel/width_sharded._exchange_halo).  The per-row scan backend (opt=0)
-instead exchanges once per ROW.  These tests pin the pattern by counting
-ppermute equations (and scan trip counts) in the traced jaxpr, so a
-refactor that silently adds a collective — or moves one inside the scan —
-fails CI rather than shipping a slower program.
+The width-sharded backend's communication pattern: per processed plane,
+ONE kept-field halo exchange outside the row scan, then one line halo
+exchange per ROW inside it — each exchange a left+right `lax.ppermute`
+pair (parallel/width_sharded._exchange_halo).  These tests pin the pattern
+by counting ppermute equations (and scan trip counts) in the traced
+jaxpr, so a refactor that silently adds a collective — or moves one into
+the scan — fails here rather than shipping a slower program.
 """
 
 import jax
@@ -18,8 +15,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from sangnom_tpu.core.formats import get_format
-from sangnom_tpu.parallel.sharding import _sharded_jit
+from sangnom_jax.core.formats import get_format
+from sangnom_jax.parallel.sharding import _sharded_jit
 
 
 def _count(jaxpr, in_scan=False, acc=None):
@@ -49,7 +46,7 @@ def _count(jaxpr, in_scan=False, acc=None):
     return acc
 
 
-def _audit(fname, smooth, opt, w=256, h=16, n_frames=2):
+def _audit(fname, opt, w=256, h=16, n_frames=2):
     fmt = get_format(fname)
     mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(1, 8),
                 ("data", "space"))
@@ -64,74 +61,44 @@ def _audit(fname, smooth, opt, w=256, h=16, n_frames=2):
         lambda pl, pa: _sharded_jit(
             pl, pa, mesh=mesh, fmt=fmt, order=1, aa=48, aac=0, dh=True,
             luma=True, chroma=True, opt=opt, numerics="c",
-            data_axis="data", space_axis="space", smooth=smooth,
-            plane_widths=tuple(p.shape[2] for p in planes),
+            data_axis="data", space_axis="space", plane_widths=tuple(p.shape[2] for p in planes),
             stride=w,
         )
     )(tuple(planes), parity)
     return _count(jx.jaxpr)
 
 
-def test_fused_collectives_gray8():
-    """GRAY8 256x16 dh over 8 width shards (W_loc=32): one plane pass.
-    R = min(chunk_rows=16, n_tot=16, (32-6)//3=8) = 8 rows/chunk, weave grid
-    n_tot = bufH = 16 -> 2 chunks.  Contract: 2 ppermutes outside the scan
-    (the one kept exchange), 2 inside (the one carry exchange per chunk),
-    scan trip count 2 — AND the bytes: the kept exchange moves the STORAGE
-    dtype (u8, 4x less ICI than widened) at HALO = 3R+6 = 30 columns, the
-    carry exchange the 5 packed i32 slabs at the same halo."""
-    acc = _audit("GRAY8", "fused", 1)
-    assert (acc["outside"], acc["inside_scan"]) == (2, 2), acc
-    assert acc["scan_lengths"] == [2], acc
-    assert acc["operands"] == [
-        ("top", "uint8", (2, 16, 30)),
-        ("top", "uint8", (2, 16, 30)),
-        ("scan", "int32", (5, 2, 30)),
-        ("scan", "int32", (5, 2, 30)),
-    ], acc["operands"]
-
-
-def test_fused_collectives_yuv420():
-    """YUV420P8: two plane passes (Y, then the UV-fused batch) — communication
-    must scale with PASSES, not with frames or sub-batches.  Chroma
-    (W_loc=16, bufH=8): R = min(16, 8, (16-6)//3=3) = 3 -> 3 chunks."""
-    acc = _audit("YUV420P8", "fused", 1)
-    assert acc["outside"] == 4, acc      # one kept exchange per plane pass
-    assert acc["inside_scan"] == 4, acc  # one carry exchange per chunk scan
-    assert sorted(acc["scan_lengths"]) == [2, 3], acc
-    # bytes contract holds per pass: kept exchanges ride the storage dtype
-    # outside the scans, carry exchanges the accumulator inside them
-    for where, dt, _shape in acc["operands"]:
-        assert (dt == "uint8") == (where == "top"), acc["operands"]
-        assert (dt == "int32") == (where == "scan"), acc["operands"]
-
-
 def test_scan_backend_exchanges_per_row():
-    """The opt=0 per-row scan backend: same static ppermute count, but the
-    carry exchange runs once per ROW (luma 15 rows, chroma 7) — the audit
-    distinguishes the backends by trip count, pinning what 'the fused path
-    cuts per-row exchanges to per-chunk' actually means."""
-    acc = _audit("YUV420P8", "scan", 0)
+    """YUV420P8: two plane passes (Y, then the UV-fused batch), each with
+    one kept exchange outside its scan and one line exchange inside it,
+    the scan running once per ROW (luma 15 rows, chroma 7)."""
+    acc = _audit("YUV420P8", 0)
     assert acc["outside"] == 4, acc
     assert acc["inside_scan"] == 4, acc
     assert sorted(acc["scan_lengths"]) == [7, 15], acc
 
 
-def test_fused_collectives_frame_chunked():
-    """Sub-batching frames through the fused kernel (the _fused_batch VMEM
-    clamp) must NOT duplicate the KEPT exchange: it runs once on the full
-    batch and sub-batches slice the exchanged array
-    (fused_smooth._fused_full).  Each sub-batch walks its own chunk scan
-    (rows recurse independently per frame group), so carry exchanges scale
-    with sub-batch count — same total bytes — while the kept exchange
-    stays exactly one."""
-    from sangnom_tpu.ops import pallas_kernel as pk
+@pytest.mark.parametrize("opt", [0, 1])
+def test_scan_collectives_gray8(opt):
+    """GRAY8 256x16 dh over 8 width shards (W_loc=32), whatever ``opt``:
+    2 ppermutes outside the scan (the kept exchange), 2 inside (the line
+    exchange), one scan of bufH-1 = 15 rows, each exchange 3 columns of
+    the int32 accumulator."""
+    acc = _audit("GRAY8", opt)
+    assert (acc["outside"], acc["inside_scan"]) == (2, 2), acc
+    assert acc["scan_lengths"] == [15], acc
+    assert acc["operands"] == [
+        ("top", "int32", (2, 16, 3)),
+        ("top", "int32", (2, 16, 3)),
+        ("scan", "int32", (9, 2, 3)),
+        ("scan", "int32", (9, 2, 3)),
+    ], acc["operands"]
 
-    old = pk._CHUNK_CAP
-    pk._CHUNK_CAP = 8  # min clamp: forces N=16 into 2 sub-batches
-    try:
-        acc = _audit("GRAY8", "fused", 1, n_frames=16)
-    finally:
-        pk._CHUNK_CAP = old
-    assert (acc["outside"], acc["inside_scan"]) == (2, 4), acc
-    assert acc["scan_lengths"] == [2, 2], acc
+
+def test_scan_collectives_frame_count_independent():
+    """Communication scales with plane passes, not frames: 16 frames trace
+    the same ppermute sites and trip counts as 2."""
+    a = _audit("GRAY8", 0, n_frames=2)
+    b = _audit("GRAY8", 0, n_frames=16)
+    assert (a["outside"], a["inside_scan"], a["scan_lengths"]) == (
+        b["outside"], b["inside_scan"], b["scan_lengths"])

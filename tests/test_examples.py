@@ -13,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax import Clip
+from sangnom_jax.io import read_y4m, write_y4m
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "examples")

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.core.fields import bob, double_weave, separate_fields, weave
-from sangnom_tpu.oracle import sangnom2_frame_oracle
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.core.fields import bob, double_weave, separate_fields, weave
+from sangnom_jax.oracle import sangnom2_frame_oracle
 
 from conftest import make_planes
 
@@ -140,7 +140,7 @@ def test_bob_gray_chroma_mask_stays_fused(rng, monkeypatch):
     )
     # only the explicit fallback calls separate_fields inside bob(); making
     # it raise proves the fused path was taken
-    import sangnom_tpu.core.fields as fields_mod
+    import sangnom_jax.core.fields as fields_mod
 
     def boom(*a, **k):
         raise AssertionError("explicit pipeline taken; expected fused")

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, SangNom2Filter, get_format, sangnom2
-from sangnom_tpu.api import SangNomError
+from sangnom_jax import Clip, SangNom2Filter, get_format, sangnom2
+from sangnom_jax.api import SangNomError
 
 from conftest import make_planes
 

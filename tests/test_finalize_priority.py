@@ -23,10 +23,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.ops.pallas_kernel import _finalize
-from sangnom_tpu.ops.primitives import KernelSpec
-from sangnom_tpu.ops.reference import finalize_select_from_taps
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.ops.pallas_kernel import _finalize
+from sangnom_jax.ops.primitives import KernelSpec
+from sangnom_jax.ops.reference import finalize_select_from_taps
 
 from scalar_model import sangnom2_frame_scalar
 

@@ -7,8 +7,8 @@ These pin the constructor-derived quantities the output observably depends on
 import numpy as np
 import pytest
 
-from sangnom_tpu.core.formats import get_format
-from sangnom_tpu.core.geometry import (
+from sangnom_jax.core.formats import get_format
+from sangnom_jax.core.geometry import (
     aaf_as_pixel,
     buffer_height,
     buffer_stride_elems,

@@ -8,7 +8,7 @@ parameter lattice for divergence and reports a minimal counterexample.
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from sangnom_tpu import Clip, get_format, sangnom2
+from sangnom_jax import Clip, get_format, sangnom2
 
 from scalar_model import sangnom2_frame_scalar
 

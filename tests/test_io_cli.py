@@ -7,8 +7,8 @@ import sys
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.io import read_y4m, write_y4m
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.io import read_y4m, write_y4m
 
 from conftest import make_planes
 
@@ -67,7 +67,7 @@ def test_cli_end_to_end(rng, tmp_path):
     write_y4m(str(src), clip)
 
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src), str(dst),
+        [sys.executable, "-m", "sangnom_jax", str(src), str(dst),
          "--order", "2", "--aa", "48"],
         capture_output=True, text=True, timeout=600,
         env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
@@ -95,7 +95,7 @@ def test_cli_cache_dir_populates_and_output_identical(rng, tmp_path):
 
     def run(dst):
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(dst),
+            [sys.executable, "-m", "sangnom_jax", str(src), str(dst),
              "--order", "1", "--dh", "--cache-dir", str(cache)],
             capture_output=True, text=True, timeout=600,
             env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
@@ -110,50 +110,72 @@ def test_cli_cache_dir_populates_and_output_identical(rng, tmp_path):
         (tmp_path / "out2.y4m").read_bytes()
 
 
-def test_cli_cache_default_policy(rng, tmp_path, monkeypatch):
-    """Round 4 (VERDICT_r3 #6): without --cache-dir the persistent compile
-    cache defaults ON under $XDG_CACHE_HOME/sangnom-tpu/xla on TPU (where
-    first-call compiles cost tens of seconds) and stays OFF elsewhere
-    (XLA's CPU AOT loader logs an ERROR line per cache load).  Precedence:
-    $SANGNOM_TPU_CACHE_DIR opts in on any backend; --cache-dir '' disables
-    even over the env var."""
+@pytest.mark.parametrize("arg,env,backend,want", [
+    (None, None, "gpu", "DEFAULT"),      # .jax_cache/ at the checkout root
+    (None, None, "cpu", None),           # no default off the accelerator
+    (None, "/x/env", "gpu", "/x/env"),   # JAX's own variable wins
+    (None, "/x/env", "cpu", "/x/env"),
+    ("/x/arg", "/x/env", "gpu", "/x/arg"),  # an explicit dir wins over all
+    ("", "/x/env", "gpu", None),         # '' disables
+])
+def test_cache_dir_resolution(monkeypatch, arg, env, backend, want):
+    from sangnom_jax.cli import DEFAULT_CACHE_DIR, resolve_cache_dir
+
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+    if want == "DEFAULT":
+        want = str(DEFAULT_CACHE_DIR)
+    assert resolve_cache_dir(arg, backend) == want
+
+
+def test_default_cache_dir_is_fixed_in_checkout():
+    """The default path is a fixed directory at the checkout root (listed
+    in .gitignore): never a temp name, a pid or a time, which would never
+    hit again."""
+    from pathlib import Path
+
+    from sangnom_jax.cli import DEFAULT_CACHE_DIR
+
+    root = Path(__file__).resolve().parent.parent
+    assert DEFAULT_CACHE_DIR == root / ".jax_cache"
+    assert ".jax_cache/" in (root / ".gitignore").read_text().splitlines()
+
+
+def test_cli_cache_default_policy(rng, tmp_path):
+    """Precedence through the CLI process: $JAX_COMPILATION_CACHE_DIR is
+    used as it stands (the CLI sets no other directory); --cache-dir ''
+    disables even over it; output bytes never depend on the cache."""
     import os
-
-    from sangnom_tpu.cli import _default_cache_dir
-
-    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
-    assert _default_cache_dir("tpu") == str(
-        tmp_path / "xdg" / "sangnom-tpu" / "xla")
-    assert _default_cache_dir("cpu") is None
-    monkeypatch.delenv("XDG_CACHE_HOME")
-    assert _default_cache_dir("tpu").endswith("/.cache/sangnom-tpu/xla")
 
     fmt = get_format("GRAY8")
     src = tmp_path / "in.y4m"
     write_y4m(str(src), Clip.from_numpy([np.zeros((1, 8, 16), np.uint8)],
                                         fmt))
     cache = tmp_path / "env_cache"
+    cache.mkdir()
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "SANGNOM_TPU_CACHE_DIR": str(cache)}
+           "JAX_COMPILATION_CACHE_DIR": str(cache)}
 
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "o1.y4m"), "--opt", "0"],
         capture_output=True, text=True, timeout=600, env=env,
     )
     assert res.returncode == 0, res.stderr
-    assert cache.is_dir() and list(cache.iterdir()), \
-        "env-var cache not populated"
+    assert list(cache.iterdir()), "env-var cache not populated"
 
     cache2 = tmp_path / "env_cache2"
-    env["SANGNOM_TPU_CACHE_DIR"] = str(cache2)
+    cache2.mkdir()
+    env["JAX_COMPILATION_CACHE_DIR"] = str(cache2)
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "o2.y4m"), "--opt", "0", "--cache-dir", ""],
         capture_output=True, text=True, timeout=600, env=env,
     )
     assert res.returncode == 0, res.stderr
-    assert not cache2.exists(), "'' did not override the env var"
+    assert not list(cache2.iterdir()), "'' did not override the env var"
     assert (tmp_path / "o1.y4m").read_bytes() == \
         (tmp_path / "o2.y4m").read_bytes()
 
@@ -161,7 +183,7 @@ def test_cli_cache_default_policy(rng, tmp_path, monkeypatch):
 # -- raw planar I/O -----------------------------------------------------------
 @pytest.mark.parametrize("fmt_name", ["GRAYS", "YUVA444P16", "YUV420P8"])
 def test_raw_roundtrip(rng, fmt_name):
-    from sangnom_tpu.io import read_raw, write_raw
+    from sangnom_jax.io import read_raw, write_raw
 
     fmt = get_format(fmt_name)
     frames = [make_planes(rng, 16, 8, fmt) for _ in range(2)]
@@ -176,7 +198,7 @@ def test_raw_roundtrip(rng, fmt_name):
 
 
 def test_raw_truncated_rejected(rng):
-    from sangnom_tpu.io import frame_size_bytes, read_raw
+    from sangnom_jax.io import frame_size_bytes, read_raw
 
     fmt = get_format("GRAY8")
     n = frame_size_bytes(fmt, 16, 8)
@@ -210,7 +232,7 @@ def test_cli_bff_flag_changes_order0(rng, tmp_path):
     for flag in ("--tff", "--bff"):
         dst = tmp_path / f"out{flag}.y4m"
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(dst),
+            [sys.executable, "-m", "sangnom_jax", str(src), str(dst),
              "--order", "0", flag, "--opt", "0"],
             capture_output=True, text=True, timeout=600, env=env,
         )
@@ -227,7 +249,7 @@ def test_cli_output_write_error_clean(rng, tmp_path):
     src = tmp_path / "in.y4m"
     write_y4m(str(src), Clip.from_numpy([np.zeros((1, 8, 16), np.uint8)], fmt))
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "no_such_dir" / "o.y4m")],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
@@ -251,7 +273,7 @@ def test_cli_passthrough_preserves_interlace_tag(rng, tmp_path):
     for extra, want in ((["--no-luma", "--no-chroma"], "t"), ([], "p")):
         dst = tmp_path / f"out_{want}.y4m"
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(dst)] + extra,
+            [sys.executable, "-m", "sangnom_jax", str(src), str(dst)] + extra,
             capture_output=True, text=True, timeout=600, env=env,
         )
         assert res.returncode == 0, res.stderr
@@ -281,7 +303,7 @@ def test_cli_pool_compat_windowed_matches_whole_clip(rng, tmp_path):
     whole, windowed = tmp_path / "whole.y4m", tmp_path / "win.y4m"
     for dst, extra in ((whole, []), (windowed, ["--window", "2"])):
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(dst)]
+            [sys.executable, "-m", "sangnom_jax", str(src), str(dst)]
             + flags + extra,
             capture_output=True, text=True, timeout=600, env=env,
         )
@@ -312,7 +334,7 @@ def test_cli_pool_compat_windowed_legacy_matches_whole_clip(rng, tmp_path):
     whole, windowed = tmp_path / "whole.y4m", tmp_path / "win.y4m"
     for dst, extra in ((whole, []), (windowed, ["--window", "2"])):
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(dst)]
+            [sys.executable, "-m", "sangnom_jax", str(src), str(dst)]
             + flags + extra,
             capture_output=True, text=True, timeout=600, env=env,
         )
@@ -331,7 +353,7 @@ def test_cli_pool_compat_windowed_validates_opt(rng, tmp_path):
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     for extra in ([], ["--window", "1"]):
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src),
+            [sys.executable, "-m", "sangnom_jax", str(src),
              str(tmp_path / "o.y4m"), "--pool-compat", "--opt", "9"] + extra,
             capture_output=True, text=True, timeout=600, env=env,
         )
@@ -349,7 +371,7 @@ def test_cli_gray_no_luma_passthrough_preserves_interlace(rng, tmp_path):
                                         fmt), interlace="b")
     dst = tmp_path / "out.y4m"
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src), str(dst),
+        [sys.executable, "-m", "sangnom_jax", str(src), str(dst),
          "--no-luma"],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
@@ -366,7 +388,7 @@ def test_cli_pool_compat_bob_window_rejected(rng, tmp_path):
         [np.zeros((2, 16, 32), np.uint8), np.zeros((2, 8, 16), np.uint8),
          np.zeros((2, 8, 16), np.uint8)], fmt))
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "o.y4m"), "--bob", "--pool-compat", "--window", "2"],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
@@ -392,7 +414,7 @@ def test_cli_explicit_fps_is_output_rate_under_bob(rng, tmp_path):
     ]:
         out = tmp_path / name
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(out),
+            [sys.executable, "-m", "sangnom_jax", str(src), str(out),
              "--bob"] + extra,
             capture_output=True, text=True, timeout=600, env=env,
         )
@@ -411,7 +433,7 @@ def test_cli_legacy_bob_rejected(rng, tmp_path):
     write_y4m(str(src), Clip.from_numpy([np.zeros((2, 8, 16), np.uint8)],
                                         fmt))
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "o.y4m"), "--legacy", "--bob"],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
@@ -426,7 +448,7 @@ def test_cli_bad_fps_clean_error(rng, tmp_path):
     src = tmp_path / "in.y4m"
     write_y4m(str(src), Clip.from_numpy([np.zeros((1, 8, 16), np.uint8)], fmt))
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src), str(tmp_path / "o.y4m"),
+        [sys.executable, "-m", "sangnom_jax", str(src), str(tmp_path / "o.y4m"),
          "--fps", "25"],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
@@ -437,7 +459,7 @@ def test_cli_bad_fps_clean_error(rng, tmp_path):
 
 # -- streaming / windowed mode ------------------------------------------------
 def test_iter_y4m_windows(rng):
-    from sangnom_tpu.io import iter_y4m
+    from sangnom_jax.io import iter_y4m
 
     fmt = get_format("GRAY8")
     planes = [np.stack([make_planes(rng, 16, 8, fmt)[0] for _ in range(7)])]
@@ -473,7 +495,7 @@ def test_cli_windowed_matches_whole_clip(rng, tmp_path, mode):
                        ("winov", ["--window", "3", "--overlap-write"])):
         dst = tmp_path / f"{tag}.y4m"
         res = subprocess.run(
-            [sys.executable, "-m", "sangnom_tpu", str(src), str(dst),
+            [sys.executable, "-m", "sangnom_jax", str(src), str(dst),
              "--opt", "0", *mode, *extra],
             capture_output=True, text=True, timeout=600, env=env,
         )
@@ -492,7 +514,7 @@ def test_cli_overlap_write_errors(rng, tmp_path):
     write_y4m(str(src), Clip.from_numpy([np.zeros((3, 8, 16), np.uint8)], fmt))
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "no_such_dir" / "o.y4m"), "--opt", "0",
          "--window", "1", "--overlap-write"],
         capture_output=True, text=True, timeout=600, env=env,
@@ -502,7 +524,7 @@ def test_cli_overlap_write_errors(rng, tmp_path):
     assert "Traceback" not in res.stderr
 
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "o.y4m"), "--overlap-write"],
         capture_output=True, text=True, timeout=600, env=env,
     )
@@ -524,7 +546,7 @@ def test_cli_overlap_reader_thread_errors(rng, tmp_path):
     src.write_bytes(data[: len(data) - 40])  # truncate mid-frame
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     res = subprocess.run(
-        [sys.executable, "-m", "sangnom_tpu", str(src),
+        [sys.executable, "-m", "sangnom_jax", str(src),
          str(tmp_path / "o.y4m"), "--opt", "0", "--window", "1",
          "--overlap-write"],
         capture_output=True, text=True, timeout=600, env=env,
@@ -567,7 +589,7 @@ def _make_y4m_bytes(rng, n_frames):
 def test_y4m_multichunk_read(rng, monkeypatch, n_frames):  # chunk boundary
     """Force the multi-chunk concatenate path (and the EOF-at-exact-chunk-
     boundary case) by shrinking the chunk byte budget to 3 frames."""
-    from sangnom_tpu.io import common
+    from sangnom_jax.io import common
 
     data, planes = _make_y4m_bytes(rng, n_frames)
     frame_bytes = 32 * 16 * 3 // 2
@@ -578,7 +600,7 @@ def test_y4m_multichunk_read(rng, monkeypatch, n_frames):  # chunk boundary
 
 
 def test_y4m_multichunk_truncated(rng, monkeypatch):
-    from sangnom_tpu.io import common
+    from sangnom_jax.io import common
 
     data, _ = _make_y4m_bytes(rng, 5)
     frame_bytes = 32 * 16 * 3 // 2
@@ -615,7 +637,7 @@ def test_y4m_read_fallback_short_reads(rng):
 
 
 def test_raw_multichunk_read(rng, monkeypatch):
-    from sangnom_tpu.io import common, read_raw, write_raw
+    from sangnom_jax.io import common, read_raw, write_raw
 
     fmt = get_format("GRAY8")
     planes = [rng.integers(0, 256, (9, 8, 16), dtype=np.uint8)]

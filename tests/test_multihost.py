@@ -2,7 +2,7 @@
 
 Spawns 2 OS processes (tests/multihost_worker.py), each owning only its
 slice of the clip, joined through a local coordinator — the CPU-backend
-stand-in for one-process-per-TPU-host over DCN.  Workers verify their local
+stand-in for one process per host over DCN.  Workers verify their local
 output shards bit-exactly against the single-process reference; this test
 asserts both workers complete with their CASE markers.
 """

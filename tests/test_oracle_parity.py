@@ -8,8 +8,8 @@ dual C/SSE2 backend pair, SURVEY.md §4).
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.oracle import sangnom2_frame_oracle
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.oracle import sangnom2_frame_oracle
 
 from conftest import make_planes
 from scalar_model import sangnom2_frame_scalar

@@ -4,7 +4,7 @@ the constructor; src/SangNom2.cpp:265-272 reuses it for every plane pass).
 
 Three independent implementations of the carry semantics are cross-checked:
 the Python scalar spec (tests/scalar_model.py), the native C++ oracle
-(sangnom_tpu/oracle), and the jnp backend (sangnom_tpu/ops/pool_carry.py) —
+(sangnom_jax/oracle), and the jnp backend (sangnom_jax/ops/pool_carry.py) —
 plus pinned tests that localize exactly WHERE the carry semantics diverge
 from the default zero-defined contract (docs/PARITY.md deviation 1/5).
 """
@@ -12,11 +12,11 @@ from the default zero-defined contract (docs/PARITY.md deviation 1/5).
 import numpy as np
 import pytest
 
-from sangnom_tpu.core.clip import Clip
-from sangnom_tpu.core.formats import get_format
-from sangnom_tpu.oracle import sangnom2_clip_oracle
-from tests.conftest import make_planes
-from tests.scalar_model import sangnom2_clip_scalar, sangnom2_frame_scalar
+from sangnom_jax.core.clip import Clip
+from sangnom_jax.core.formats import get_format
+from sangnom_jax.oracle import sangnom2_clip_oracle
+from conftest import make_planes
+from scalar_model import sangnom2_clip_scalar, sangnom2_frame_scalar
 
 
 def _frames(rng, fmt, w, h, n):
@@ -25,7 +25,7 @@ def _frames(rng, fmt, w, h, n):
 
 def _run_jnp(frames, fmt, **kw):
     """Whole clip through the public API with pool_compat=True."""
-    from sangnom_tpu import sangnom2
+    from sangnom_jax import sangnom2
 
     planes = [
         np.stack([f[i] for f in frames]) for i in range(len(frames[0]))
@@ -87,7 +87,7 @@ def test_threeway_pool_parity(rng, fname, w, h, order, aa, aac, dh, luma,
     # jnp path goes through the public API; parity array drives order=0
     planes = [np.stack([f[i] for f in frames]) for i in range(len(frames[0]))]
     clip = Clip.from_numpy(planes, fmt, parity=np.asarray(parities))
-    from sangnom_tpu import sangnom2
+    from sangnom_jax import sangnom2
 
     out = sangnom2(clip, pool_compat=True, **kw)
     got_jnp = [
@@ -96,9 +96,8 @@ def test_threeway_pool_parity(rng, fname, w, h, order, aa, aac, dh, luma,
     ]
     _assert_clips_equal(got_jnp, want, cast_dtype=frames[0][0].dtype)
 
-    # four-way: the Pallas pool-smoothing backend (opt=1 — interpret mode
-    # here; compiled-Mosaic parity is pinned on hardware,
-    # results/poolpallas_ab_r03.txt) against the same scalar spec
+    # four-way: opt=1 runs the same scan in pool_compat mode (the mode has
+    # no kernel of its own) — pinned against the same scalar spec
     out_p = sangnom2(clip, pool_compat=True, opt=1, **kw)
     got_pallas = [
         [np.asarray(out_p.planes[i][n]) for i in range(len(planes))]
@@ -194,75 +193,3 @@ def test_unaligned_width_luma_carry(rng):
     # oracle agrees with the scalar spec on the carried history
     got = sangnom2_clip_oracle(frames, fmt, order=1, aa=48, pool_compat=True)
     _assert_clips_equal(got, out, cast_dtype=np.uint8)
-
-
-FAST_CONFIGS = [
-    # condition-TRUE geometries (stride-aligned luma, luma-first):
-    # fmt, w, h, order, aa, aac, dh, luma, chroma
-    ("YUV420P8", 64, 16, 1, 48, 48, False, True, True),
-    ("YUV420P8", 64, 16, 0, 48, 48, False, True, True),   # mixed parity
-    ("YUV420P8", 32, 8, 2, 28, 0, True, False, True),     # dh w/o luma
-    ("YUV420P16", 64, 16, 1, 48, 48, False, True, True),
-    ("YUV420PS", 64, 16, 1, 48, 48, False, True, True),
-    ("GRAY8", 64, 16, 1, 48, 0, False, True, False),
-]
-
-
-@pytest.mark.parametrize("fname,w,h,order,aa,aac,dh,luma,chroma", FAST_CONFIGS)
-@pytest.mark.parametrize("numerics", ["c", "sse2"])
-def test_frame_parallel_fast_path(rng, fname, w, h, order, aa, aac, dh,
-                                  luma, chroma, numerics, monkeypatch):
-    """The frame-parallel pool fast path (`_frames_independent`) is
-    bit-identical to the sequential Pallas scan — outputs AND final pool —
-    and actually engages on these geometries (chunking forced to split)."""
-    import jax.numpy as jnp
-
-    from sangnom_tpu.core.formats import get_format as gf
-    from sangnom_tpu.ops import pool_carry
-
-    if numerics == "sse2" and fname == "YUV420PS":
-        pytest.skip("sse2 numerics is integer-only")
-    fmt = gf(fname)
-    assert pool_carry._frames_independent(w, h, fmt, dh, luma)
-    frames = _frames(rng, fmt, w, h, 5)
-    parities = [True, False, True, False, False]
-    planes = tuple(
-        jnp.asarray(np.stack([f[i] for f in frames]))
-        for i in range(len(frames[0]))
-    )
-    parr = jnp.asarray(parities)
-
-    def run():
-        return pool_carry.sangnom2_pool_impl(
-            planes, parr, fmt, order, aa, aac, dh, luma, chroma,
-            numerics=numerics, opt=1,
-        )
-
-    monkeypatch.setattr(pool_carry, "POOL_FAST", False)
-    out_seq, pool_seq = run()
-    monkeypatch.setattr(pool_carry, "POOL_FAST", True)
-    monkeypatch.setattr(pool_carry, "POOL_FAST_BATCH", 2)  # force chunking
-    out_fast, pool_fast = run()
-
-    for i, (a, b) in enumerate(zip(out_seq, out_fast)):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), err_msg=f"plane {i}"
-        )
-    np.testing.assert_array_equal(
-        np.asarray(pool_seq), np.asarray(pool_fast), err_msg="final pool"
-    )
-
-
-def test_frames_independent_predicate():
-    """The fast-path condition rejects every carried-state geometry."""
-    from sangnom_tpu.core.formats import get_format as gf
-    from sangnom_tpu.ops.pool_carry import _frames_independent
-
-    fmt = gf("YUV420P8")
-    assert _frames_independent(64, 16, fmt, dh=False, luma=True)
-    assert _frames_independent(64, 16, fmt, dh=True, luma=False)
-    # unaligned luma width: pad-column carry survives the luma prepare
-    assert not _frames_independent(60, 16, fmt, dh=False, luma=True)
-    assert not _frames_independent(48, 16, fmt, dh=False, luma=True)
-    # luma skipped: U inherits the previous frame's V residue
-    assert not _frames_independent(64, 16, fmt, dh=False, luma=False)

@@ -9,7 +9,7 @@ per-frame parity flips, dh layout, and plane-mask passthrough
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
+from sangnom_jax import Clip, get_format, sangnom2
 
 from conftest import make_planes
 

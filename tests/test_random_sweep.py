@@ -8,7 +8,7 @@ lattice the explicit tests don't enumerate.
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
+from sangnom_jax import Clip, get_format, sangnom2
 
 from conftest import make_planes
 from scalar_model import sangnom2_frame_scalar

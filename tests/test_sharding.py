@@ -8,8 +8,8 @@ import jax
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.parallel import default_mesh, sangnom2_sharded
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.parallel import default_mesh, sangnom2_sharded
 
 from conftest import make_planes
 
@@ -91,10 +91,9 @@ def test_width_sharded_chroma_subsampling(rng):
 
 @pytest.mark.parametrize("opt", [0, 1])
 def test_width_sharded_smooth_backends(rng, opt):
-    """opt=0 routes the per-row-exchange scan smoothing, any other opt the
-    chunked-Pallas smoothing (parallel/fused_smooth.py) — both bit-exact to
-    the unsharded reference, on a mixed data x space mesh with subsampled
-    chroma and order=0 traced offsets."""
+    """Width sharding runs the per-row-exchange scan whatever ``opt`` says
+    — bit-exact to the unsharded reference on a mixed data x space mesh
+    with subsampled chroma and order=0 traced offsets."""
     parity = np.array([True, False, True])
     clip = _clip(rng, "YUV420P8", 64, 16, n=3, parity=parity)
     mesh = default_mesh(data=2, space=4)
@@ -106,9 +105,8 @@ def test_width_sharded_smooth_backends(rng, opt):
 
 
 def test_width_sharded_fully_fused_order0_dh(rng):
-    """The fully-fused chunk kernel (round 3: prepare+smooth+finalize in
-    one Pallas kernel per chunk, interpolate_fused_full) on the true-bob
-    shape: order=0 mixed parity + dh + subsampled chroma, 2x4 mesh."""
+    """The width-sharded scan with opt=1 on the true-bob shape: order=0
+    mixed parity + dh + subsampled chroma, 2x4 mesh."""
     parity = np.array([True, False, True, False])
     clip = _clip(rng, "YUV420P8", 64, 16, n=4, parity=parity)
     mesh = default_mesh(data=2, space=4)
@@ -121,8 +119,8 @@ def test_width_sharded_fully_fused_order0_dh(rng):
 
 
 def test_width_sharded_fully_fused_u16_and_float(rng):
-    """Unpacked integer (u16) and float (association-preserving hbox)
-    through the fully-fused sharded kernel."""
+    """u16 and float (the halo hbox keeps the reference's left-to-right
+    association) through the width-sharded scan with opt=1."""
     mesh = default_mesh(data=1, space=4)
     for fmt_name, kw in [("GRAY16", dict(order=1, aa=128, aac=64)),
                          ("GRAYS", dict(order=2))]:
@@ -132,49 +130,9 @@ def test_width_sharded_fully_fused_u16_and_float(rng):
         _assert_clips_equal(got, want)
 
 
-def test_width_sharded_fused_frame_chunking(rng, monkeypatch):
-    """The fused sharded kernel chunks its FRAME batch (its VMEM carries
-    scale with N; production batches would otherwise blow the 64 MiB
-    scoped-VMEM window).  Pin the chunk split by forcing a tiny batch
-    cap: N=5 over g=2 -> 3 kernel shapes-worth of slices, uneven tail,
-    per-frame offsets sliced along — bit-exact vs the unsharded
-    reference, weave and no-weave arms."""
-    import sangnom_tpu.parallel.fused_smooth as fs
-
-    monkeypatch.setattr(fs, "_fused_batch", lambda W_ext, n_sm: 2)
-    parity = np.array([True, False, True, False, False])
-    clip = _clip(rng, "YUV420P8", 64, 16, n=5, parity=parity)
-    mesh = default_mesh(data=1, space=4)
-    want = sangnom2(clip, opt=0, order=0, dh=True, aa=48, aac=48)
-    got = sangnom2_sharded(
-        clip, mesh, order=0, dh=True, aa=48, aac=48, space_axis="space",
-        opt=1,
-    )
-    _assert_clips_equal(got, want)
-    jax.clear_caches()  # drop jits traced with the patched batch cap
-
-
-def test_width_sharded_chunked_frame_chunking(rng, monkeypatch):
-    """The chunked-smoothing backend bounds its frame batch too (its
-    [C, W_ext] VMEM set scales with C = nine*N): force a tiny clamp so
-    N=5 splits, bit-exact vs the unsharded reference."""
-    import sangnom_tpu.parallel.fused_smooth as fs
-
-    monkeypatch.setattr(fs, "_batch_clamp", lambda per_frame_bytes: 2)
-    clip = _clip(rng, "YUV420P8", 64, 16, n=5)
-    mesh = default_mesh(data=1, space=4)
-    want = sangnom2(clip, opt=0, order=1, aac=48)
-    got = sangnom2_sharded(clip, mesh, order=1, aac=48,
-                           space_axis="space", smooth="chunked")
-    _assert_clips_equal(got, want)
-    jax.clear_caches()  # drop jits traced with the patched clamp
-
-
 def test_width_sharded_sse2_numerics(rng):
     """The reference's SSE2 numerics contract through the sharded surface
-    (round 3: sangnom2_sharded grows the ``numerics`` axis; the shared
-    primitives carry it into every sharded backend incl. the fully-fused
-    chunk kernel) — bit-exact vs the unsharded sse2 path at the integer
+    (the shared primitives carry it into the sharded scan) — bit-exact vs the unsharded sse2 path at the integer
     extremes where the contracts genuinely diverge."""
     clip = _clip(rng, "YUV420P8", 64, 16, n=2)
     mesh = default_mesh(data=2, space=4)
@@ -187,40 +145,9 @@ def test_width_sharded_sse2_numerics(rng):
         sangnom2_sharded(clip, mesh, numerics="bogus")
 
 
-def test_smooth_requires_space_axis(rng):
-    """smooth= names a width-sharded backend; a data-only mesh must reject
-    it rather than silently running the per-shard default."""
-    clip = _clip(rng, "GRAY8", 32, 16, n=2)
-    mesh = default_mesh(data=8)
-    with pytest.raises(ValueError, match="requires space_axis"):
-        sangnom2_sharded(clip, mesh, order=1, smooth="scan")
-
-
-def test_smooth_unknown_name_rejected(rng):
-    """A typo'd smooth= name must raise, not fall through every backend
-    match to the scan arm (the silent-wrong-arm mismeasurement hazard)."""
-    clip = _clip(rng, "GRAY8", 64, 16, n=2)
-    mesh = default_mesh(data=4, space=2)
-    with pytest.raises(ValueError, match="expected one of"):
-        sangnom2_sharded(clip, mesh, order=1, space_axis="space",
-                         smooth="fusd")
-
-
-def test_width_sharded_smooth_chunked_variant(rng):
-    """The round-2 chunked-smoothing-only variant stays reachable and
-    bit-exact (smooth='chunked': Pallas smoothing, XLA prepare/finalize)."""
-    clip = _clip(rng, "YUV420P8", 64, 16, n=2)
-    mesh = default_mesh(data=1, space=4)
-    want = sangnom2(clip, opt=0, order=1, aac=48)
-    got = sangnom2_sharded(clip, mesh, order=1, aac=48,
-                           space_axis="space", smooth="chunked")
-    _assert_clips_equal(got, want)
-
-
 def test_width_sharded_fused_thin_shards(rng):
-    """8-way sharding of a 64-col stride leaves 8-col shards: the chunked
-    smoother adapts its chunk size to the halo bound (R=(W_loc-3)//3=1) and
-    stays bit-exact."""
+    """8-way sharding of a 64-col stride leaves 8-col shards, still wider
+    than the 3-column halo: bit-exact."""
     clip = _clip(rng, "GRAY8", 64, 16, n=2)
     mesh = default_mesh(data=1, space=8)
     want = sangnom2(clip, opt=0, order=1)
@@ -309,11 +236,10 @@ def test_width_sharded_alpha_passthrough(rng):
 
 
 def test_sharded_repeat_calls_hit_jit_cache(rng):
-    """Repeat calls with the same mesh/config must not retrace: the
-    per-call closure jit retraced AND recompiled the whole sharded program
-    every invocation (~200 ms/frame of host compile vs ~0.3 ms/frame of
-    device time at 1080p, results/sharded1_tpu_r03.txt)."""
-    from sangnom_tpu.parallel.sharding import _sharded_jit
+    """Repeat calls with the same mesh/config must not retrace: a per-call
+    closure jit retraced AND recompiled the whole sharded program every
+    invocation."""
+    from sangnom_jax.parallel.sharding import _sharded_jit
 
     clip = _clip(rng, "YUV420P8", 32, 16, n=4)
     mesh = default_mesh(data=2, space=2)
@@ -341,45 +267,14 @@ def test_width_sharded_411_deep_stride_cut(rng):
             _assert_clips_equal(got, want)
 
 
-def test_width_sharded_in_kernel_weave_engaged(rng, monkeypatch):
-    """The sharded fused path must route through the IN-KERNEL weave
-    (deinterlace_fused_full) for all three offset modes — static 0/1 and
-    per-frame ('pf') — not fall back to the XLA interleave, and stay
-    bit-exact vs the unsharded reference."""
-    import sangnom_tpu.parallel.fused_smooth as fs
-
-    seen = []
-    orig = fs._fused_full
-
-    def spy(*args, **kw):
-        seen.append(kw.get("weave_offset"))
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(fs, "_fused_full", spy)
-    mesh = default_mesh(data=1, space=4)
-    cases = [
-        ("YUV420P8", dict(order=1, dh=True), None, 0),
-        ("GRAY8", dict(order=2), None, 1),
-        ("GRAY8", dict(order=0), np.array([True, False, True]), "pf"),
-    ]
-    for fmt_name, kw, parity, expect in cases:
-        seen.clear()
-        clip = _clip(rng, fmt_name, 64, 16, n=3, parity=parity)
-        want = sangnom2(clip, opt=0, **kw)
-        got = sangnom2_sharded(clip, mesh, space_axis="space", opt=1, **kw)
-        _assert_clips_equal(got, want)
-        assert expect in seen, (fmt_name, kw, seen)
-
-
-def _lowered_collectives(clip, mesh, *, smooth, opt, n_space, order=1,
-                         dh=False):
+def _lowered_collectives(clip, mesh, *, opt, n_space, order=1, dh=False):
     """collective_permute site count in the UNCOMPILED StableHLO of the
     cached sharded program (S._sharded_jit) — the designed communication
     structure, before backend passes."""
     import jax.numpy as jnp
 
-    import sangnom_tpu.parallel.sharding as S
-    from sangnom_tpu.core.geometry import buffer_stride_elems
+    import sangnom_jax.parallel.sharding as S
+    from sangnom_jax.core.geometry import buffer_stride_elems
 
     fmt = clip.format
     stride = buffer_stride_elems(clip.width, fmt.component_size)
@@ -397,77 +292,49 @@ def _lowered_collectives(clip, mesh, *, smooth, opt, n_space, order=1,
     lowered = S._sharded_jit.lower(
         tuple(planes), clip.parity_array(), mesh=mesh, fmt=fmt, order=order,
         aa=48, aac=0, dh=dh, luma=True, chroma=True, opt=opt, numerics="c",
-        data_axis="data", space_axis="space", smooth=smooth,
-        plane_widths=widths, stride=stride,
+        data_axis="data", space_axis="space", plane_widths=widths,
+        stride=stride,
     )
-    txt = lowered.as_text()
-    total = txt.count("stablehlo.collective_permute")
-    # The fused path's KEPT-FIELD exchange rides the STORAGE dtype (u8
-    # here) while the per-chunk carry exchange rides the i32 accumulator —
-    # the tensor element type in the StableHLO identifies which is which.
-    kept = sum(
-        1 for line in txt.splitlines()
-        if "stablehlo.collective_permute" in line and "ui8>" in line
-    )
-    return total, kept
+    return lowered.as_text().count("stablehlo.collective_permute")
 
 
-def test_sharded_halo_exchange_count_invariants(rng, monkeypatch):
-    """Pin the sharded communication STRUCTURE (docs/MULTICHIP.md):
-
-    1. The fused path's whole-field (kept, storage-dtype) exchange runs
-       ONCE per plane on the full frame batch; VMEM sub-batches slice the
-       exchanged array instead of re-exchanging (the round-3 review fix —
-       a regression re-introducing a per-sub-batch kept exchange grows the
-       u8 site count).  The small per-chunk carry exchange legitimately
-       appears once per sub-batch SCAN (same total bytes; production
-       batches don't sub-batch on the sharded path: g_max ~ 224 at the
-       4-shard 1080p headline vs B=120).
-    2. No backend's count may grow with plane HEIGHT — per-row (scan) and
-       per-chunk (fused/chunked) exchanges ride lax.scan state, so the
-       site count is height-independent by design.
-    """
-    import sangnom_tpu.parallel.fused_smooth as fs
-
+def test_sharded_halo_exchange_count_invariants(rng):
+    """Pin the sharded communication STRUCTURE (docs/MULTICHIP.md): the
+    per-row halo exchanges ride the scan state, so the number of
+    collective sites is independent of plane height, and every processed
+    plane trace has them."""
     mesh = default_mesh(data=2, space=2)
-
-    base_total, base_kept = _lowered_collectives(
-        _clip(rng, "YUV420P8", 64, 32, n=8), mesh,
-        smooth="fused", opt=1, n_space=2)
-    # 2 plane traces (luma + fused UV) x one left+right kept exchange
-    assert base_kept == 4, base_kept
-    assert base_total > base_kept  # carry exchanges exist too
-    monkeypatch.setattr(fs, "_fused_batch", lambda W_ext, n_sm: 4)
-    split_total, split_kept = _lowered_collectives(
-        _clip(rng, "YUV420P8", 64, 32, n=24), mesh,
-        smooth="fused", opt=1, n_space=2)
-    assert split_kept == base_kept, (
-        f"kept-field halo exchanges grew under frame sub-batching: "
-        f"{base_kept} -> {split_kept} (one exchange per plane is the "
-        f"contract; sub-batches must slice the exchanged array)"
-    )
-    assert split_total > base_total  # per-sub-batch carry scans, by design
-    monkeypatch.undo()
-
-    for smooth, opt in (("fused", 1), ("chunked", 1), ("scan", 0)):
-        short, _ = _lowered_collectives(_clip(rng, "YUV420P8", 64, 32, n=4),
-                                        mesh, smooth=smooth, opt=opt,
-                                        n_space=2)
-        tall, _ = _lowered_collectives(_clip(rng, "YUV420P8", 64, 96, n=4),
-                                       mesh, smooth=smooth, opt=opt,
-                                       n_space=2)
+    for opt in (0, 1):
+        short = _lowered_collectives(_clip(rng, "YUV420P8", 64, 32, n=4),
+                                     mesh, opt=opt, n_space=2)
+        tall = _lowered_collectives(_clip(rng, "YUV420P8", 64, 96, n=4),
+                                    mesh, opt=opt, n_space=2)
+        assert short > 0
         assert tall == short, (
-            f"{smooth}: halo-exchange sites scale with height "
+            f"opt={opt}: halo-exchange sites scale with height "
             f"({short} -> {tall}); exchanges must ride the scan"
         )
-    jax.clear_caches()  # drop programs traced with the patched batch cap
+
+
+@pytest.mark.parametrize("kw,parity", [
+    (dict(order=1, dh=True), None),
+    (dict(order=0), np.array([True, False, False, True])),
+])
+def test_data_parallel_runs_kernel_per_shard(rng, kw, parity):
+    """Frame sharding with opt=1 runs the row-scan kernel inside each
+    shard (interpreted here), bit-exact to the unsharded jnp path."""
+    clip = _clip(rng, "YUV420P8", 32, 16, n=4, parity=parity)
+    mesh = default_mesh(data=4)
+    want = sangnom2(clip, opt=0, **kw)
+    got = sangnom2_sharded(clip, mesh, opt=1, **kw)
+    _assert_clips_equal(got, want)
 
 
 def test_pool_compat_sharded_rejected(rng):
     """pool_compat x sharding is an EXPLICIT fail-fast rejection, not a
     silent hole (VERDICT_r4 #4; analysis in docs/MULTICHIP.md) — the pool
     is sequential cross-frame state."""
-    from sangnom_tpu.api import SangNomError
+    from sangnom_jax.api import SangNomError
 
     clip = _clip(rng, "YUV420P8", 32, 16, n=4)
     mesh = default_mesh(data=4, space=2)

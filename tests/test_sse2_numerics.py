@@ -17,13 +17,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.core.geometry import (
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.core.geometry import (
     buffer_height,
     buffer_stride_elems,
     scaled_aa_thresholds,
 )
-from tests.conftest import make_planes
+from conftest import make_planes
 
 TOOL_DIR = Path(__file__).parent.parent / "tools" / "sse2_baseline"
 REF_SRC = Path("/root/reference/src/SangNom2_SSE2.cpp")
@@ -54,7 +54,7 @@ def _load_ref_lib():
 def _ref_sse2_frame(lib, planes, fmt, order, aa, aac, dh):
     """All planes of one frame through the genuine reference SSE2 path
     (zero pool per plane — the framework's pool contract)."""
-    from sangnom_tpu.ops.sangnom import field_offset_py
+    from sangnom_jax.ops.sangnom import field_offset_py
 
     offset = field_offset_py(order, True)
     aafs = scaled_aa_thresholds(aa, aac, fmt)
@@ -101,7 +101,7 @@ def test_sse2_numerics_matches_real_reference(rng, fname, w, h, kw):
     """jnp backend AND the Python scalar spec with numerics='sse2' == the
     reference's own compiled SSE2 pipeline, bit for bit (full-range random
     input: the divergent saturate/logical-shift paths fire constantly)."""
-    from tests.scalar_model import sangnom2_frame_scalar
+    from scalar_model import sangnom2_frame_scalar
 
     lib = _load_ref_lib()
     fmt = get_format(fname)
@@ -208,7 +208,7 @@ def test_pool_carry_sse2_matches_real_reference(rng):
 
 
 def test_numerics_validation(rng):
-    from sangnom_tpu.api import SangNom2Filter, SangNomError
+    from sangnom_jax.api import SangNom2Filter, SangNomError
 
     fmt = get_format("GRAY8")
     clip = Clip.from_numpy([np.zeros((1, 8, 16), np.uint8)], fmt)
@@ -220,7 +220,7 @@ def test_numerics_validation(rng):
 
 def test_filter_object_threads_numerics(rng):
     """The filter-object surface must express the full composed contract."""
-    from sangnom_tpu.api import SangNom2Filter
+    from sangnom_jax.api import SangNom2Filter
 
     fmt = get_format("GRAY8")
     planes = make_planes(rng, 32, 16, fmt)

@@ -3,8 +3,8 @@
 Runs the full harness in-process at toy geometry: all five stage timings
 produce finite rates, the end-to-end CLI arms run, and the harness's own
 byte-identity assertion (serial == overlap output) executes.  Protects
-the round-4 pipeline instrumentation from bitrot; real numbers come from
-TPU runs (results/stream_attr_r04.txt).
+the pipeline instrumentation from bitrot; real numbers come from runs on
+the card.
 """
 
 import json

@@ -3,15 +3,16 @@
 import logging
 
 import numpy as np
+import pytest
 
-from sangnom_tpu import Clip, sangnom2
-from sangnom_tpu.utils import get_logger, log_dispatch, stage_scope
+from sangnom_jax import Clip, sangnom2
+from sangnom_jax.utils import get_logger, log_dispatch, stage_scope
 
 
 def test_dispatch_logging_emits_structured_line(caplog):
     lg = get_logger()
     lg.setLevel(logging.INFO)
-    with caplog.at_level(logging.INFO, logger="sangnom_tpu"):
+    with caplog.at_level(logging.INFO, logger="sangnom_jax"):
         log_dispatch(fmt="GRAY8", backend="x", order=1)
     assert any("fmt=GRAY8" in r.message and "order=1" in r.message
                for r in caplog.records)
@@ -20,7 +21,7 @@ def test_dispatch_logging_emits_structured_line(caplog):
 def test_dispatch_log_fires_on_filter_call(caplog):
     clip = Clip.from_numpy([np.zeros((1, 8, 16), np.uint8)], "GRAY8")
     get_logger().setLevel(logging.INFO)
-    with caplog.at_level(logging.INFO, logger="sangnom_tpu"):
+    with caplog.at_level(logging.INFO, logger="sangnom_jax"):
         sangnom2(clip, order=2, aa=7)  # fresh param combo forces a retrace
     assert any("aa=7" in r.message for r in caplog.records)
 
@@ -30,36 +31,18 @@ def test_stage_scope_usable():
         pass
 
 
-def test_cost_model_counts():
-    """Pin the roofline cost model: op counts derive from the kernel's own
-    width tiers (docs/KERNEL.md table); a silent drift here would corrupt
-    the utilization figure bench.py reports."""
-    from sangnom_tpu.core.formats import get_format
-    from sangnom_tpu.core.geometry import width_tiers as _width_tiers
-    from sangnom_tpu.ops.primitives import KernelSpec
-    from sangnom_tpu.utils.cost_model import (
-        OPS_PER_COL_ACT,
-        OPS_PER_COL_ACT_PACK_EXTRA,
-        OPS_PER_COL_SM_PACKED,
-        kernel_ops_per_frame,
-        vpu_utilization,
-    )
+@pytest.mark.parametrize("device_bytes,frames", [
+    (60 * 2**30, 120),  # 75% of an 80 GB card: the 1080p batch in one scan
+    (8 * 2**30, 17),
+    (2**20, 1),
+])
+def test_scan_batch_from_device_memory(monkeypatch, device_bytes, frames):
+    """The plain path's frame chunk follows the device's memory: six
+    [9, bufH+1, S] int32 arrays per frame within half of it."""
+    from sangnom_jax.ops import reference
 
-    fmt = get_format("YUV420P8")
-    # hand-compose the headline config from the same tiers (u8 C-numerics
-    # runs the packed smoothing, so the packed per-column rates apply)
-    want = 0
-    for w, bufH in ((1920, 540), (960, 270), (960, 270)):
-        W_act, W_sm, _ = _width_tiers(w, bufH, 1920, KernelSpec.from_format(fmt))
-        want += (bufH - 1) * (
-            (OPS_PER_COL_ACT + OPS_PER_COL_ACT_PACK_EXTRA) * W_act
-            + OPS_PER_COL_SM_PACKED * W_sm
-        )
-    got = kernel_ops_per_frame(fmt, 1920, 540, dh=True)
-    assert got == want
-    u = vpu_utilization(2959.0, fmt, 1920, 540, dh=True)
-    assert 0.05 < u["vpu_utilization"] < 1.0
-    # skipped planes drop out of the count
-    only_luma = kernel_ops_per_frame(fmt, 1920, 1080, dh=False, chroma=False)
-    full = kernel_ops_per_frame(fmt, 1920, 1080, dh=False)
-    assert only_luma < full
+    monkeypatch.setattr(reference, "_device_bytes", lambda: device_bytes)
+    g = reference.scan_batch(540, 1920)
+    assert g >= frames and g >= 1
+    assert g * 6 * 9 * 541 * 1920 * 4 <= max(device_bytes // 2,
+                                             6 * 9 * 541 * 1920 * 4)

@@ -26,8 +26,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
-from sangnom_tpu import Clip, get_format, sangnom, sangnom2
-from sangnom_tpu.api import SangNomError
+from sangnom_jax import Clip, get_format, sangnom, sangnom2
+from sangnom_jax.api import SangNomError
 
 
 # --- the mock host ----------------------------------------------------------
@@ -197,7 +197,7 @@ def _src_node(vs, rng, w=32, h=16, n=6, fmt_name="YUV420P8", props=None):
 
 def test_adapter_matches_direct_filter(rng, monkeypatch):
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     node, stacked = _src_node(vs, rng)
     out = SangNom2(node, order=1, dh=True, opt=0, batch=4)
@@ -217,7 +217,7 @@ def test_adapter_partial_last_window(rng, monkeypatch):
     """num_frames not divisible by batch: the end-padded gather clips must
     not leak padding into the outputs."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     node, stacked = _src_node(vs, rng, n=7)
     out = SangNom2(node, order=2, opt=0, batch=4)
@@ -235,7 +235,7 @@ def test_adapter_order0_field_props(rng, monkeypatch):
     """order=0 parity comes from the _Field frame prop (std.SeparateFields
     semantics: 1 = top), the analogue of host GetParity(n)."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     props = {k: {"_Field": k % 2} for k in range(6)}
     node, stacked = _src_node(vs, rng, props=props)
@@ -257,7 +257,7 @@ def test_adapter_pool_compat_chains_across_windows(rng, monkeypatch):
     review's confirmed repro: unaligned w=52, batch=3, plane 0 diverged at
     frame 3 before the fix)."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     node, stacked = _src_node(vs, rng, w=52, h=16, n=7)
     out = SangNom2(node, order=2, opt=0, batch=3, pool_compat=True)
@@ -284,7 +284,7 @@ def test_adapter_pool_compat_forward_seek(rng, monkeypatch):
     """A seek PAST the chain (intermediate windows never requested) fills
     the gap through the off-worker prefetcher and stays byte-identical."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     node, stacked = _src_node(vs, rng, w=52, h=16, n=9)
     out = SangNom2(node, order=1, opt=0, batch=2, pool_compat=True)
@@ -303,7 +303,7 @@ def test_adapter_propagates_source_props(rng, monkeypatch):
     """Output frames carry the SOURCE frame's props (colorimetry/range),
     with field-ness rewritten to progressive."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     props = {k: {"_Matrix": 1, "_ColorRange": 1, "_Field": k % 2}
              for k in range(6)}
@@ -319,7 +319,7 @@ def test_adapter_rejects_unsupported_depth(rng, monkeypatch):
     """9-bit VS formats raise the adapter's fail-fast SangNomError, not a
     raw registry KeyError."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     node, _ = _src_node(vs, rng)
     node.format = _MockFormat(vs.YUV, 9, vs.INTEGER, 1, 1)
@@ -329,7 +329,7 @@ def test_adapter_rejects_unsupported_depth(rng, monkeypatch):
 
 def test_adapter_legacy_and_errors(rng, monkeypatch):
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom, register
+    from sangnom_jax.hosts.vapoursynth import SangNom, register
 
     node, stacked = _src_node(vs, rng)
     out = SangNom(node, order=0, opt=0, batch=3)  # legacy 0 = keep bottom
@@ -350,7 +350,7 @@ def test_adapter_legacy_and_errors(rng, monkeypatch):
 
 # --- multithreaded stress (VERDICT_r4 #1b) ----------------------------------
 
-STRESS_TIMEOUT = 120  # generous: CPU-mesh TPU emulation is slow
+STRESS_TIMEOUT = 120  # generous: the CPU mesh is slow
 
 
 def _hammer(out_node, order_of_requests, n_threads):
@@ -391,7 +391,7 @@ def test_stress_parallel_out_of_order(rng, monkeypatch):
     byte-identical to the direct filter, zero nested fetches — the worker
     pool cannot be exhausted because workers never re-enter the host."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     N = 12
     node, stacked = _src_node(vs, rng, n=N)
@@ -413,7 +413,7 @@ def test_stress_single_flight_dedup(rng, monkeypatch):
     """All threads storming ONE window: the window is computed once (single
     flight), not once per thread."""
     vs = _install_mock(monkeypatch)
-    import sangnom_tpu.hosts.vapoursynth as host
+    import sangnom_jax.hosts.vapoursynth as host
 
     node, stacked = _src_node(vs, rng, n=8)
     runs = []
@@ -439,7 +439,7 @@ def test_stress_pool_compat_parallel(rng, monkeypatch):
     to whole-clip processing, no deadlock, no nested fetches from selector
     context (gap/restart fetches ride the adapter's own thread)."""
     vs = _install_mock(monkeypatch)
-    from sangnom_tpu.hosts.vapoursynth import SangNom2
+    from sangnom_jax.hosts.vapoursynth import SangNom2
 
     N = 10
     node, stacked = _src_node(vs, rng, w=52, h=16, n=N)
@@ -468,7 +468,7 @@ def test_stress_pool_compat_sequential_parallel_lookahead(rng, monkeypatch):
     review's confirmed hazard in the first-come-takes-the-chain
     design)."""
     vs = _install_mock(monkeypatch)
-    import sangnom_tpu.hosts.vapoursynth as host
+    import sangnom_jax.hosts.vapoursynth as host
 
     off_worker = []
     orig_fetch = host._WindowRunner._fetch_off_worker

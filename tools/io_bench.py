@@ -1,8 +1,7 @@
 """Host-side y4m I/O throughput A/B: legacy staging path vs readinto path.
 
-The device kernel sustains ~6000 fps at 1080p; on a non-tunneled host the
-CLI's end-to-end throughput is bounded by the y4m framing layer, so its
-copy count matters.  Legacy read: fh.read -> frombuffer views -> np.stack
+When the device outruns the host, the CLI's end-to-end throughput is
+bounded by the y4m framing layer, so its copy count matters.  Legacy read: fh.read -> frombuffer views -> np.stack
 (copy) -> astype (copy) -> jnp.asarray (copy).  New read
 (io/y4m._read_frame_block): readinto directly into preallocated per-plane
 arrays -> jnp.asarray — two copies total.  Legacy write: per-frame
@@ -27,9 +26,9 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from sangnom_tpu.core.clip import Clip  # noqa: E402
-from sangnom_tpu.core.formats import get_format  # noqa: E402
-from sangnom_tpu.io.y4m import (  # noqa: E402
+from sangnom_jax.core.clip import Clip  # noqa: E402
+from sangnom_jax.core.formats import get_format  # noqa: E402
+from sangnom_jax.io.y4m import (  # noqa: E402
     _parse_header,
     read_y4m,
     write_y4m,

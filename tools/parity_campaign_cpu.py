@@ -9,8 +9,8 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
-from sangnom_tpu import Clip, get_format, sangnom2
-from sangnom_tpu.oracle import sangnom2_frame_oracle
+from sangnom_jax import Clip, get_format, sangnom2
+from sangnom_jax.oracle import sangnom2_frame_oracle
 
 FMTS = ["GRAY8", "GRAY10", "GRAY12", "GRAY14", "GRAY16", "GRAYS",
         "YUV420P8", "YUV420P16", "YUV420PS", "YUV422P8", "YUV422P10",

@@ -29,8 +29,8 @@ def main() -> int:
     use_bob = len(sys.argv) > 3 and sys.argv[3] == "bob"
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from sangnom_tpu.core.clip import Clip
-    from sangnom_tpu.io import write_y4m
+    from sangnom_jax.core.clip import Clip
+    from sangnom_jax.io import write_y4m
 
     rng = np.random.default_rng(42)
     w, h = 640, 480
@@ -51,7 +51,7 @@ def main() -> int:
         dst = os.path.join(tmp, f"{name}.y4m")
         outs[name] = dst
         mode = ["--bob"] if use_bob else ["--order", "1"]
-        cmd = [sys.executable, "-m", "sangnom_tpu", src, dst,
+        cmd = [sys.executable, "-m", "sangnom_jax", src, dst,
                "--aa", "48"] + mode + extra
         # run under a child so RSS is the CLI's, not ours
         r = subprocess.run(

@@ -1,13 +1,13 @@
-"""Verify drive: real-TPU user-style checks (.claude/skills/verify/SKILL.md).
+"""Verify drive: user-style checks on the GPU (.claude/skills/verify/SKILL.md).
 
 1. Diagonal-edge drive: edge-directed interpolation vs naive average.
-2. Float path end to end: YUV444PS opt=1 (fused Pallas, in-kernel weave)
+2. Float path end to end: YUV444PS opt=1 (the row-scan kernel)
    vs opt=0 vs native oracle, bit-exact; all three orders + dh + mixed
    per-frame parity (order=0) on a multi-frame clip.
 3. Error probes: exact reference strings
    (/root/reference/src/SangNom2.cpp:399-472).
 
-Run on the real TPU (no JAX_PLATFORMS pin); exits non-zero on any failure.
+Run on the GPU (no JAX_PLATFORMS pin); exits non-zero on any failure.
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))  # repo root, so `python tools/x.py` works uninstalled
@@ -19,13 +19,13 @@ import jax
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
-assert jax.default_backend() == "tpu", jax.default_backend()
+assert jax.default_backend() == "gpu", jax.default_backend()
 log("devices:", jax.devices())
 
-from sangnom_tpu import Clip, sangnom2, sangnom
-from sangnom_tpu.api import SangNomError
-from sangnom_tpu.core.formats import get_format
-from sangnom_tpu.oracle import sangnom2_frame_oracle
+from sangnom_jax import Clip, sangnom2, sangnom
+from sangnom_jax.api import SangNomError
+from sangnom_jax.core.formats import get_format
+from sangnom_jax.oracle import sangnom2_frame_oracle
 
 FMT_S = get_format("YUV444PS")
 
